@@ -204,7 +204,7 @@ def test_host_cbf_matches_device_semantics():
 
 
 def test_exact_genome_counter_matches_brute_force(monkeypatch):
-    """ExactGenomeCounter (one streaming sort-merge pass, the beyond-HBM
+    """ExactGenomeCounter (one streaming sort-merge pass, the large-genome
     replacement for the Bloom filter) must return the EXACT multiplicity of
     every queried k-mer in the genome, capped at 255."""
     from varigraph_tpu.ops.exact_count import ExactGenomeCounter

@@ -57,6 +57,19 @@ def test_counts_checkpoint_mismatch_rejected(ready, tmp_path):
         load_counts(gi, ck)
 
 
+def test_counts_checkpoint_other_keys_rejected(ready, tmp_path, monkeypatch):
+    """A checkpoint of a same-size table with different keys is refused."""
+    paths, gi, out = ready
+    ck = str(tmp_path / "counts.npz")
+    save_counts(gi, ck, 7)
+    assert load_counts(gi, ck) == 7
+    other = gi.table.keys_np().copy()
+    other[-1] += np.uint64(1 << 8)
+    monkeypatch.setattr(gi.table, "_keys_np", other)
+    with pytest.raises(ValueError, match="keys differ"):
+        load_counts(gi, ck)
+
+
 def test_debug_traces(ready, capsys):
     paths, gi, out = ready
     cfg = VarigraphConfig(kmer_len=27, vcf_ploidy=2, seed=0, debug=True,

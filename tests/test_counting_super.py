@@ -1,9 +1,9 @@
 """Large-table (superbatch) counting path: genotype/counting's buffered
 sort-merge join must produce exactly the per-batch joins' coverage.
 
-This is the path that fixes the round-3 1 Gbp failure (the per-batch
-joins OOM at compile against multi-10M-key tables); the tests force it at
-toy scale via _BANDED_MAX_KEYS/_SUPER_ROWS so every piece runs: stash of
+This is the path of tables above _SMALL_TABLE_MAX_KEYS (1 Gbp genomes and
+up); the tests force it at
+toy scale via _SMALL_TABLE_MAX_KEYS/_SUPER_ROWS so every piece runs: stash of
 fused groups, super-join on full buffers, buffer rotation, stale-row
 masking, and the partial tail join.
 """
@@ -73,7 +73,7 @@ def _reads_and_table(nreads=150, seed=3):
 @pytest.mark.parametrize("n_devices", [1, 0])
 def test_superbatch_count_reads_matches_default(tmp_path, monkeypatch,
                                                 super_rows, n_devices):
-    """count_reads with the big-table path forced (tiny _BANDED_MAX_KEYS,
+    """count_reads with the big-table path forced (tiny _SMALL_TABLE_MAX_KEYS,
     small _SUPER_ROWS) == count_reads on the default per-batch path, for a
     stream long enough to fill buffers several times plus a partial tail.
 
@@ -81,7 +81,7 @@ def test_superbatch_count_reads_matches_default(tmp_path, monkeypatch,
     (_count_packed_super); n_devices=0 uses all 8 virtual CPU devices and
     exercises the hash-range-sharded mesh superbatch path
     (parallel/mesh.make_count_super_hash_sharded), asserting parity between
-    the distributed and single-device formulations (VERDICT r4 #5)."""
+    the distributed and single-device formulations."""
     reads, table = _reads_and_table()
     fq = str(tmp_path / "r.fq.gz")
     _write_fastq(fq, reads)
@@ -90,7 +90,7 @@ def test_superbatch_count_reads_matches_default(tmp_path, monkeypatch,
     want = table.cov_u8().copy()
     table.reset_cov()
 
-    monkeypatch.setattr(C, "_BANDED_MAX_KEYS", 0)
+    monkeypatch.setattr(C, "_SMALL_TABLE_MAX_KEYS", 0)
     monkeypatch.setattr(C, "_SUPER_ROWS", super_rows)
     got_bases = C.count_reads(table, [fq], K, B, L, n_devices=n_devices,
                               io_threads=1)
@@ -109,7 +109,7 @@ def test_superbatch_exact_multiplicities(tmp_path, monkeypatch):
     fq = str(tmp_path / "r.fq.gz")
     _write_fastq(fq, reads)
 
-    monkeypatch.setattr(C, "_BANDED_MAX_KEYS", 0)
+    monkeypatch.setattr(C, "_SMALL_TABLE_MAX_KEYS", 0)
     monkeypatch.setattr(C, "_SUPER_ROWS", 8)
     C.count_reads(table, [fq], K, B, L, io_threads=1)
 

@@ -90,39 +90,3 @@ def test_count_merge_chunked_matches_flat():
                                     jnp.asarray(q), jnp.asarray(mask), chunks)
         np.testing.assert_array_equal(np.asarray(cov_c), np.asarray(cov_flat))
 
-
-def test_count_merge_banded_matches_flat():
-    """Pallas banded join (interpret mode) == two-sort join, including the
-    duplicate-overflow fallback path."""
-    import jax.numpy as jnp
-
-    from varigraph_tpu.ops.join_pallas import count_merge_banded
-    from varigraph_tpu.ops.table import count_merge
-
-    rng = np.random.default_rng(11)
-    keys = np.unique(
-        (rng.integers(0, 1 << 50, size=300, dtype=np.uint64) << np.uint64(8))
-        | np.uint64(27)
-    )
-    m = len(keys)
-    q = (rng.integers(0, 1 << 50, size=4096, dtype=np.uint64) << np.uint64(8)) | np.uint64(27)
-    hit = rng.random(4096) < 0.3
-    q[hit] = keys[rng.integers(0, m, size=int(hit.sum()))]
-    mask = rng.random(4096) < 0.9
-    exp = count_merge(jnp.zeros(m, jnp.uint32), jnp.asarray(keys),
-                      jnp.asarray(q), jnp.asarray(mask))
-    for tb, qband in ((128, 4096), (64, 2048), (128, 2048)):
-        got = count_merge_banded(jnp.zeros(m, jnp.uint32), jnp.asarray(keys),
-                                 jnp.asarray(q), jnp.asarray(mask),
-                                 interpret=True, tb=tb, qband=qband)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(exp))
-
-    # overflow: one k-mer repeated beyond two band tiles -> fallback
-    n2 = 3 * 4096 + 1
-    q2 = np.full(n2, keys[3], np.uint64)
-    exp2 = count_merge(jnp.zeros(m, jnp.uint32), jnp.asarray(keys),
-                       jnp.asarray(q2), jnp.ones(n2, bool))
-    got2 = count_merge_banded(jnp.zeros(m, jnp.uint32), jnp.asarray(keys),
-                              jnp.asarray(q2), jnp.ones(n2, bool),
-                              interpret=True)
-    np.testing.assert_array_equal(np.asarray(got2), np.asarray(exp2))

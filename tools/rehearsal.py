@@ -6,7 +6,8 @@ Usage:
   python tools/rehearsal.py DATA_DIR [--graph cached.vgt] [--skip-construct]
 
 DATA_DIR must hold a tools/gen_big.py dataset (ref.fa, vars.vcf.gz,
-S1_*.fq.gz, samples.cfg, truth.npz).  Results feed BASELINE.md.
+S1_*.fq.gz, samples.cfg, truth.npz).  It runs in one process; on a GPU
+machine chip_smoke.py runs the same path through the CLI.
 """
 
 from __future__ import annotations

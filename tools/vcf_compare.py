@@ -10,6 +10,7 @@ import numpy as np
 
 
 def read_calls(path):
+    """{(chrom, pos): sorted GT tuple} for every record with a called GT."""
     calls = {}
     with gzip.open(path, "rt") as fh:
         for line in fh:
@@ -33,29 +34,52 @@ def read_truth(path):
     return out
 
 
-def vs_truth(name, calls, truth):
-    n_eval = n_match = n_missing = 0
+def truth_concordance(calls, truth):
+    """(match_written, n_written, match_nonref, n_nonref, missing_nonref).
+
+    Written sites are the called records whose position the truth knows;
+    the non-ref figures count every truth site that is not 0/0."""
+    written = [k for k in calls if k in truth]
+    match_written = sum(1 for k in written if calls[k] == truth[k])
+    n_nonref = match_nonref = missing = 0
     for key, exp in truth.items():
         if exp == (0, 0):
             continue
-        n_eval += 1
+        n_nonref += 1
         got = calls.get(key)
         if got is None:
-            n_missing += 1
+            missing += 1
         elif got == exp:
-            n_match += 1
-    print(f"{name}: {n_match}/{n_eval} = {n_match/max(n_eval,1):.4f} vs truth "
-          f"(missing {n_missing})")
+            match_nonref += 1
+    return match_written, len(written), match_nonref, n_nonref, missing
 
 
-a = read_calls(sys.argv[1])
-b = read_calls(sys.argv[2])
-keys = set(a) | set(b)
-both = sum(1 for k in keys if k in a and k in b)
-same = sum(1 for k in keys if a.get(k) is not None and a.get(k) == b.get(k))
-print(f"sites: A {len(a)}, B {len(b)}, shared {both}")
-print(f"GT identical on shared: {same}/{both} = {same/max(both,1):.4f}")
-if len(sys.argv) > 3:
-    truth = read_truth(sys.argv[3])
-    vs_truth("A", a, truth)
-    vs_truth("B", b, truth)
+def gt_agreement(a, b):
+    """(identical, union): sites whose GT is the same in both call sets,
+    over the sites called in either."""
+    keys = set(a) | set(b)
+    same = sum(1 for k in keys if a.get(k) is not None and a.get(k) == b.get(k))
+    return same, len(keys)
+
+
+def vs_truth(name, calls, truth):
+    mw, nw, mn, nn, miss = truth_concordance(calls, truth)
+    print(f"{name}: {mw}/{nw} = {mw/max(nw,1):.4f} on written sites; "
+          f"{mn}/{nn} = {mn/max(nn,1):.4f} vs truth non-ref (missing {miss})")
+
+
+def main(argv):
+    a = read_calls(argv[1])
+    b = read_calls(argv[2])
+    both = sum(1 for k in set(a) | set(b) if k in a and k in b)
+    same, _ = gt_agreement(a, b)
+    print(f"sites: A {len(a)}, B {len(b)}, shared {both}")
+    print(f"GT identical on shared: {same}/{both} = {same/max(both,1):.4f}")
+    if len(argv) > 3:
+        truth = read_truth(argv[3])
+        vs_truth("A", a, truth)
+        vs_truth("B", b, truth)
+
+
+if __name__ == "__main__":
+    main(sys.argv)

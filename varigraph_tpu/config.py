@@ -1,8 +1,8 @@
 """Run configuration for both pipeline phases.
 
 Mirrors the reference's VarigraphConfig (include/varigraph.hpp:26-103, defaults
-at :49-68) plus TPU-specific knobs (device batching, mesh shape, seeds) that
-have no reference counterpart.
+at :49-68) plus device knobs (batching, mesh shape, seeds) that have no
+reference counterpart.
 """
 
 from __future__ import annotations
@@ -43,9 +43,9 @@ class VarigraphConfig:
     seed: int = 0  # deterministic seed for CBF hashing + Dirichlet draws
     engine: str = "jax"  # genotyping engine: "jax" (device) | "np" (host oracle)
 
-    # ---- TPU / batching knobs (no reference counterpart) ----
-    # 16384x160 keeps the sort-merge join in its fast regime (~2.6M elements;
-    # larger sorts fall off a VMEM cliff on v5e)
+    # ---- device / batching knobs (no reference counterpart) ----
+    # 16384 x 160 is ~2.2M join slots per batch at k=27; the benchmark
+    # sizes it (ROADMAP S0)
     read_batch_size: int = 16384  # reads per device batch
     max_read_len: int = 160  # padded read length for device batches
     mesh_devices: int = 0  # 0 = all local devices

@@ -382,7 +382,7 @@ def build_graph_from_vcf(
         # past element 9 into ONE tab-joined element on load (element
         # boundaries differ in-memory vs loaded, content is identical after
         # a tab re-split) -- any future consumer indexing elements 9+ must
-        # re-split on tabs rather than trust block boundaries (ADVICE r4).
+        # re-split on tabs rather than trust block boundaries.
         info_list = vcf_info.setdefault(chromosome, {}).setdefault(ref_start, [])
         for qry in qry_seq_vec:
             classify_variant(ref_len, len(qry), stats)

@@ -308,11 +308,10 @@ def _merge_file_streams(paths, max_parallel, make_stream):
     import queue
     import threading
 
-    # Deep enough to keep decompress/pack threads busy across the consumer's
-    # periodic pacing syncs (counting fetches a sync point every
-    # _PACE_GROUPS * _FUSE = 32 batches; a 2*max_parallel=8-batch buffer made
-    # feed and device ALTERNATE instead of overlap -- measured wall was
-    # feed + sync, ~2x the max of the two).  64 packed [16384, L/4+2] batches
+    # Deep enough to keep decompress/pack threads busy while the consumer
+    # waits for the device at the end of each staged phase
+    # (genotype/counting._STAGE_GROUPS); a shallow buffer makes feed and
+    # device alternate instead of overlap.  64 packed [16384, L/4+2] batches
     # is ~44 MB of host RAM.
     q: queue.Queue = queue.Queue(maxsize=max(64, 2 * max_parallel))
     errors: list[BaseException] = []

@@ -13,6 +13,8 @@ import subprocess
 import tempfile
 import threading
 
+from ..utils.log import log
+
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
@@ -75,6 +77,9 @@ def get_fastq_lib():
                 pass
             lib.vgf_close.restype = None
             lib.vgf_close.argtypes = [ctypes.c_void_p]
+            lib.vgf_inflate_backend.restype = ctypes.c_char_p
+            log(f"native FASTQ reader: {so} "
+                f"({lib.vgf_inflate_backend().decode()})")
             _LIB = lib
             return _LIB
         return None

@@ -4,8 +4,7 @@ The reference is strictly single-process (SURVEY.md section 2.8); this is the
 new first-class distributed layer.  Topology: every host streams its own
 slice of the FASTQ inputs (files are assigned round-robin per process), the
 k-mer table is replicated (or hash-sharded, parallel/mesh.py) across all
-devices, and per-shard count deltas merge with psum over the global mesh --
-collectives ride ICI within a slice and DCN across hosts.
+devices, and per-shard count deltas merge with psum over the global mesh.
 """
 
 from __future__ import annotations
@@ -22,9 +21,9 @@ def initialize_distributed(coordinator: str | None = None,
                            process_id: int | None = None) -> None:
     """Initialize jax.distributed for multi-host runs.
 
-    With no arguments, relies on the environment (TPU pod runtime autodetects
-    coordinator/process topology).  Safe to call once per process before any
-    device computation.
+    With no arguments, relies on the environment (a cluster runtime that JAX
+    autodetects); elsewhere pass all three.  Call once per process before
+    any device computation.
     """
     kwargs = {}
     if coordinator is not None:

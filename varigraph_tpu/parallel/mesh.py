@@ -1,23 +1,22 @@
 """Multi-chip execution over a jax.sharding.Mesh.
 
 The reference has no distributed mode at all (SURVEY.md section 2.4: a CPU
-thread pool plus one optional CUDA device).  This layer is new, TPU-first
-design:
+thread pool plus one optional CUDA device).  This layer is new; the mesh is
+1-D and topology-free (every device reaches every other):
 
   * mesh axis "data": read batches are sharded across devices; each device
     sketches and probes its shard, per-shard count deltas merge with psum
-    (replicated-table mode) -- collectives ride ICI.
-  * hash-range sharding: when the k-mer table exceeds a single chip's HBM,
-    keys/cov are sharded along the table axis; each device probes its local
-    key range against the (replicated) query batch and keeps its own coverage
-    shard -- no collective needed on the update path at all.
+    (replicated-table mode).
+  * hash-range sharding: for large tables, keys/cov are sharded along the
+    table axis; each device probes its local key range against the
+    (all-gathered) query batch and keeps its own coverage shard -- no
+    collective needed on the update path at all.
   * genotyping windows are a batch dimension (window-parallel scoring):
     the [W, N, S] forward/backward in engine_jax vmaps over windows, so
     sharding W across "data" distributes the HMM with zero code change.
 
-All functions are shard_map'd and jitted; they run identically on a
-multi-chip TPU slice or on `--xla_force_host_platform_device_count=N`
-virtual CPU devices.
+All functions are shard_map'd and jitted; they run identically on several
+GPUs or on `--xla_force_host_platform_device_count=N` virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -166,8 +165,7 @@ def make_count_super_hash_sharded(mesh: Mesh, k: int):
     coverage shards update locally -- no collective on the write path.  The
     per-device join cost is (M/D + G*nq) sort elements: the table term that
     motivates the superbatch regime scales DOWN with mesh size, unlike the
-    replicated per-batch path that round 4 proved unscalable at 29M+ keys
-    (VERDICT r4 partial #1).  F must be divisible by the mesh size
+    replicated per-batch path.  F must be divisible by the mesh size
     (_pick_super_rows emits multiples of 8).
     """
     from ..ops.kmer import sketch_packed
@@ -196,7 +194,7 @@ def make_count_super_hash_sharded(mesh: Mesh, k: int):
 # position-range-sharded counting Bloom filter
 # ----------------------------------------------------------------------
 # A human-scale genome CBF (n = 3e9, p = 0.01 -> ~9.6 cells/elem) is ~29 GB
-# of uint8 counters -- larger than one chip's HBM.  Shard the counter array
+# of uint8 counters.  Shard the counter array
 # by position range: every device computes all hash positions (replicated
 # VPU work, no communication), scatters only the positions in its own range
 # (write path has NO collective), and `count` takes a pmin across devices
